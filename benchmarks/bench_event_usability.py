@@ -1,5 +1,5 @@
-"""Event-solve usability study at the 640x480 / 64k-packet operating point
-(VERDICT r4 #4): sweep the event-frame cost basin — accumulation density
+"""Event-solve usability study at the 640x480 / 64k-packet operating point:
+sweep the event-frame cost basin — accumulation density
 (events per packet), blur kernel, per-level iteration caps (the
 tracking/Config.hpp:45 per-level list analog) — across seeds, and report
 the usable-packet fraction of the full EDSPipeline gate

@@ -5,7 +5,7 @@
 // The reference delegates this whole layer to the external Rock/orogen task
 // (SURVEY §0 L7: "the dataflow loop, buffering of events/images, and wiring
 // of L2-L6"); this framework ships it natively. Rationale: frame decode +
-// event packetization are the serial host work that must overlap the TPU
+// event packetization are the serial host work that must overlap the device
 // compute — a Python-thread loader is throttled by the GIL during zlib
 // inflate + unfiltering, while these workers run free (ctypes releases the
 // GIL for the blocking next() call).

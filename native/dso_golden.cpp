@@ -4,7 +4,7 @@
 // by file I/O. tests/test_golden_parity.py seeds a world, runs this binary,
 // and asserts that slam_eds_tpu.ops.energy (and ops.event_tracker) agree
 // entry-wise within f32 tolerance — the only reference-parity proof
-// available in an environment without the EDS dataset (VERDICT r4 #2).
+// available in an environment without the EDS dataset.
 //
 // Reference semantics implemented (all citations /root/reference/src/...):
 //  * residual linearization: tracking/Residuals.cpp:69-265 — FEJ center

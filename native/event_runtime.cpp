@@ -1,5 +1,5 @@
 // Native host runtime: event buffering, packetization, and frame-queue
-// bookkeeping for the TPU odometry pipeline.
+// bookkeeping for the odometry pipeline.
 //
 // The reference keeps this layer OUTSIDE the library (the Rock/orogen task
 // owns the dataflow loop — buffering of events/images and packet formation;

@@ -1,12 +1,13 @@
-"""slam_eds_tpu — a TPU-native event-aided direct sparse odometry framework.
+"""slam_eds_tpu — an event-aided direct sparse odometry framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 uzh-rpg/slam-eds (EDS, CVPR'22): event-to-model photometric tracking, a
 DSO-style frame front-end, and sliding-window photometric bundle adjustment
 with Schur-complement point marginalization — built batched, masked, and
-jit-compiled for TPU, with device-mesh sharding for the distributed BA.
+jit-compiled for an accelerator (an NVIDIA GPU), with device-mesh sharding
+for the distributed BA.
 
-Layering (mirrors SURVEY.md §1, redesigned TPU-first):
+Layering (mirrors SURVEY.md §1, redesigned for batched arrays):
   utils/     math core: Lie groups, cameras, interpolation, images, stats
   ops/       compute kernels: residuals, trackers, BA solver, depth filter
   models/    state pytrees: keyframes, event frames, the sliding window

@@ -2,7 +2,7 @@
 
 The reference has NO checkpointing (SURVEY §5 — output recording is
 delegated to the external driver, reference src/utils/Config.hpp:27-54);
-for a multi-host TPU deployment restartability is required, so this module
+for a long-running or multi-host deployment restartability is required, so this module
 adds it: the complete BA window (BAState incl. the HM/bM marginalization
 prior), the depth-filter states, the tracker pose window, and arbitrary
 host-side scalars are saved as one pytree.

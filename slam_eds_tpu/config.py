@@ -13,9 +13,9 @@ Defaults mirror the reference's compiled defaults so a config-less run behaves
 like stock EDS/DSO. Static ints here (capacities, pyramid levels) become
 compile-time constants of the jitted kernels.
 
-Capacities are TPU-specific: the reference grows/erases std::vectors freely;
-we use fixed capacities + validity masks (SURVEY §7 "The hard parts"), padded
-to lane multiples (128) so kernels tile cleanly.
+Capacities are fixed: the reference grows/erases std::vectors freely; here
+arrays have fixed capacities + validity masks (SURVEY §7 "The hard parts")
+so every jitted program has static shapes.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
 
-import yaml
+from .io import yaml_subset
 
 
 @dataclass(frozen=True)
@@ -65,7 +65,7 @@ class EventTrackerConfig:
     # update (Tracker::trackPoints / trackPointsPyr /
     # trackPointsAlongEpiline, src/tracking/Tracker.cpp:378-553):
     # none | klt | klt_pyr | model_klt | epiline (model_klt is the
-    # scale-correct TPU-native mode; klt/klt_pyr mirror the reference)
+    # scale-correct mode of this repo; klt/klt_pyr mirror the reference)
     track_refinement: str = "none"
     refinement_patch_radius: int = 3
     refinement_pyr_levels: int = 3          # klt_pyr depth (min 3x3 patch)
@@ -264,7 +264,7 @@ class KeyFrameConfig:
 
 @dataclass(frozen=True)
 class Capacities:
-    """Fixed TPU-side array capacities (lane-aligned)."""
+    """Fixed array capacities (static shapes of the jitted programs)."""
     max_points_per_kf: int = 2048       # active-point budget (2000 rounded up)
     max_immature_per_kf: int = 1536     # immature budget (1500 rounded up)
     max_window_frames: int = 8          # 7-KF window + incoming slot
@@ -275,7 +275,7 @@ class Capacities:
 class RecorderConfig:
     """Output recording (src/utils/Config.hpp:27-54)."""
     enabled: bool = False
-    output_folder: str = "/tmp/eds_tpu"
+    output_folder: str = "/tmp/slam_eds"
     poses_filename: str = "poses.txt"
     velos_filename: str = "velos.txt"
     save_viz: bool = False
@@ -314,12 +314,12 @@ def _update_dataclass(obj, data: dict):
 
 
 def load_config(path_or_dict) -> EDSConfig:
-    """Build an EDSConfig from a YAML file path or a nested dict, with
+    """Build an EDSConfig from a YAML file path (read by
+    ``io.yaml_subset``) or a nested dict, with
     defaults for everything unspecified (the YAML schema mirrors the
     dataclass field names, one section per subsystem)."""
     if isinstance(path_or_dict, dict):
         data = path_or_dict
     else:
-        with open(path_or_dict) as f:
-            data = yaml.safe_load(f) or {}
+        data = yaml_subset.load(path_or_dict) or {}
     return _update_dataclass(EDSConfig(), data)

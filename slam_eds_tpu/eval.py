@@ -2,14 +2,14 @@
 
 The reference ecosystem evaluates EDS by replaying each CVPR'22 sequence
 through the external orogen task and scoring ATE against ground truth on the
-project site — one sequence at a time, one process each. On TPU we instead:
+project site — one sequence at a time, one process each. Here instead:
 
 * run every sequence in ONE process so each jitted kernel compiles once and
   is reused across sequences (``evaluate_sequences``), and
 * expose a genuinely batched solve surface: ``batched_event_solves`` vmaps
   the full event-to-model LM solver (ops/event_tracker.optimize) over a
   batch of (event frame, keyframe tensor) problems, so B sequences' packets
-  at the same cadence run as one MXU-shaped program — the per-chip
+  at the same cadence run as one batched program — the per-device
   throughput surface for fleet-scale evaluation/replay.
 
 CLI:
@@ -74,7 +74,7 @@ def batched_ba_windows(states, target_images, height: int, width: int,
                        iterations: int = 6, orth_from_iteration: int = 2):
     """vmap of the full keyframe-BA GN loop (ops/energy.ba_iterate) over a
     leading batch axis B — B independent sliding windows (e.g. one per
-    replayed sequence) advance in one MXU-shaped program.
+    replayed sequence) advance in one batched program.
 
     states: BAState with every leaf batched [B, ...]; target_images
     [B, F, H, W, 3]. Returns (batched BAState, energies [B]).

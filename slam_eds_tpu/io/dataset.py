@@ -26,6 +26,7 @@ import jax.numpy as jnp
 from ..utils.cameras import Pinhole
 from ..utils.interp import bilinear
 from ..utils.lie import SE3
+from ..utils.precision import full_f32
 
 
 class EventPacket(NamedTuple):
@@ -103,6 +104,7 @@ class SyntheticSequence:
     def _surface_z(self, X, Y):
         return 2.0 + 0.3 * jnp.sin(1.1 * X) * jnp.cos(0.9 * Y) + 0.15 * X
 
+    @full_f32
     def _render_impl(self, tau):
         cam = self.cam
         T_wc = SE3.exp(tau)

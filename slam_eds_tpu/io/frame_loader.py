@@ -5,7 +5,7 @@ The reference's dataflow loop lives in the external Rock/orogen task
 (SURVEY §0 L7); this framework ships it natively. The loader runs N C++
 worker threads that decode dataset frames ahead of the consumer into a
 fixed pool of recycled slots (bounded prefetch = backpressure), so PNG
-inflate + unfiltering overlap the TPU compute instead of serializing with
+inflate + unfiltering overlap the device compute instead of serializing with
 it in the Python loop. The scheduler is the deterministic frame/event-packet
 interleave of runner.py as a native state machine.
 

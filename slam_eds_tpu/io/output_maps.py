@@ -1,6 +1,6 @@
 """World-frame pointcloud export from the BA window state.
 
-TPU-native counterpart of the reference's backend map exporter (reference
+Counterpart of the reference's backend map exporter (reference
 src/io/OutputMaps.{h,cpp} — `dso::io::getMap(fh, hcalib, color)` exports
 FrameHessian active/marginalized/immature points as world pointclouds with
 idepth-variance filtering, OutputMaps.h:49-52) and of the keyframe map
@@ -107,8 +107,8 @@ def radius_outlier_removal(xyz, valid, nb_points: int = 8,
     least ``nb_points`` neighbors within ``radius`` — the reference's PCL
     SOR pass on the map output (``sor_active/nb_points/radius`` in
     src/mapping/Config.hpp:29-61). Brute-force [N, N] distance matrix: at
-    map capacities (<= a few thousand points) one MXU-shaped matmul beats
-    any tree walk on TPU. Returns the tightened validity mask."""
+    map capacities (<= a few thousand points) one matmul-shaped reduction
+    replaces a tree walk. Returns the tightened validity mask."""
     x = jnp.asarray(xyz, jnp.float32)
     sq = jnp.sum(x * x, axis=-1)
     d2 = sq[:, None] + sq[None, :] - 2.0 * (x @ x.T)

@@ -1,4 +1,4 @@
-"""Sliding-window BA state — the TPU-native replacement for DSO's pointer
+"""Sliding-window BA state — the array replacement for DSO's pointer
 graph (FrameHessian/PointHessian/EFFrame/EFPoint/EFResidual, reference
 src/tracking/HessianBlocks.h and src/bundles/EnergyFunctionalStructs.h).
 
@@ -25,6 +25,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import jax
 import jax.numpy as jnp
 
@@ -123,3 +124,43 @@ def empty_state(num_frames: int, num_points: int, calib,
         HM=jnp.zeros((D, D), dtype),
         bM=jnp.zeros((D,), dtype),
     )
+
+
+def synthetic_window(frames: int = 8, points: int = 2048, height: int = 480,
+                     width: int = 640, seed: int = 0):
+    """A seeded full window for timing and checking the BA: ``points``
+    active points hosted on the first ``frames - 1`` slots, observed in
+    every other slot, small random poses, a 1e8 gauge prior on slot 0 and
+    one smooth [I, gx, gy] image per slot. The defaults are the reference
+    operating point (2048 points, window 7+1, 640x480, focal 400).
+    Returns (state, images [F, H, W, 3])."""
+    F, P, H, W = frames, points, height, width
+    rng = np.random.default_rng(seed)
+    f = 400.0 * W / 640.0
+    state = empty_state(F, P, jnp.asarray(
+        [f, f, (W - 1) / 2.0, (H - 1) / 2.0], jnp.float32))
+    taus = jnp.asarray(rng.uniform(-0.05, 0.05, (F, 6)), jnp.float32)
+    T = jax.vmap(SE3.exp)(taus)
+    uv = jnp.asarray(np.stack([rng.uniform(8, W - 8, P),
+                               rng.uniform(8, H - 8, P)], -1), jnp.float32)
+    hosts = rng.integers(0, F - 1, P)
+    r_act = np.ones((P, F), bool)
+    r_act[np.arange(P), hosts] = False
+    state = state._replace(
+        T_eval=T,
+        frame_valid=jnp.ones(F, bool),
+        p_uv=uv,
+        p_host=jnp.asarray(hosts, jnp.int32),
+        p_idepth=jnp.asarray(rng.uniform(0.3, 1.0, P), jnp.float32),
+        p_idepth_zero=jnp.asarray(rng.uniform(0.3, 1.0, P), jnp.float32),
+        p_color=jnp.asarray(rng.uniform(20, 200, (P, PATTERN)), jnp.float32),
+        p_status=jnp.full((P,), PT_ACTIVE, jnp.int32),
+        r_active=jnp.asarray(r_act),
+        frame_prior=jnp.zeros((F, 8), jnp.float32).at[0, :6].set(1e8),
+    )
+    ys, xs = np.mgrid[0:H, 0:W]
+    base = (np.sin(xs * 0.05) * np.cos(ys * 0.07) * 100 + 128).astype(
+        np.float32)
+    img = np.stack([base, np.gradient(base, axis=1),
+                    np.gradient(base, axis=0)], -1)
+    return state, jnp.asarray(np.broadcast_to(img, (F, H, W, 3)))

@@ -1,6 +1,6 @@
 """EDS KeyFrame — the event-side reference frame with its active point set.
 
-TPU-native redesign of ``eds::tracking::KeyFrame`` (reference
+Array-based redesign of ``eds::tracking::KeyFrame`` (reference
 src/tracking/KeyFrame.{hpp,cpp}): one pytree of fixed-capacity parallel
 arrays with a validity mask replaces the 10 grow/erase std::vectors
 (coord, norm_coord, grad, patches, residuals, weights, tracks, flow,
@@ -62,7 +62,7 @@ class KeyFrame(NamedTuple):
 def nn_depth_lookup(uv, map_uv, map_idp, map_mask):
     """Brute-force nearest-neighbor inverse-depth association + distance
     weights (setDepthMap, KeyFrame.cpp:1137-1198; the reference's KDTree is
-    a CPU-side optimization — on TPU the dense [P, M] distance matrix is a
+    a CPU-side optimization — here the dense [P, M] distance matrix is a
     single matmul-shaped reduction).
 
     Returns (idepth [P], weight [P]): weight = 1 - minmax-normalized NN

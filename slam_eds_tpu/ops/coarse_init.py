@@ -1,6 +1,6 @@
 """Monocular bootstrap: joint pose + per-point inverse-depth initializer.
 
-TPU-native redesign of DSO's ``CoarseInitializer`` (reference
+Array-based redesign of DSO's ``CoarseInitializer`` (reference
 src/init/CoarseInitializer.{h,cpp}): the pyramid-coarse-to-fine LM that
 jointly estimates the relative 8-dof state (pose + affine) of the second
 frame and one inverse depth per selected first-frame point, with
@@ -10,8 +10,8 @@ frame and one inverse depth per selected first-frame point, with
 * a fixed-degree neighbor graph for idepth smoothing (makeNN's nanoflann
   10-NN, CoarseInitializer.cpp:884+ — here a host-side brute-force KNN,
   computed once),
-* the Schur-complement GN step: 8x8 reduced camera system accumulated on
-  the MXU, per-point idepth back-substitution (calcResAndGS,
+* the Schur-complement GN step: 8x8 reduced camera system accumulated as
+  einsums, per-point idepth back-substitution (calcResAndGS,
   CoarseInitializer.cpp:265+ and its JbBuffer),
 * neighbor-median idepth regularization (optReg, regWeight 0.8),
 * the translation-"snap" detection with alpha energies (alphaK=2.5^2,
@@ -39,6 +39,7 @@ from ..utils.lie import SE3
 from ..utils import lie
 from ..utils.interp import bilinear_3
 from ..utils.image import PATTERN_DSO8
+from ..utils.precision import full_f32
 
 NUM_NN = 10
 ALPHA_K = 2.5 * 2.5            # CoarseInitializer.cpp:204
@@ -186,6 +187,7 @@ def _neighbor_median(idepth, good, nn):
 
 
 @partial(jax.jit, static_argnames=("iterations", "height", "width"))
+@full_f32
 def _track_level(lvl: InitLevel, img_new, K4, T_10: SE3, aff, snapped,
                  height: int, width: int, iterations: int = 30,
                  huber_th: float = 9.0, lam0: float = 0.1):

@@ -1,6 +1,6 @@
 """Coarse-to-fine direct image alignment (frame -> newest keyframe).
 
-TPU-native redesign of DSO's ``CoarseTracker`` (reference
+Array-based redesign of DSO's ``CoarseTracker`` (reference
 src/tracking/CoarseTracker.{h,cpp}):
 * semi-dense tracking templates from splatted active points with hole
   dilation and weighted pyramid-down (``makeCoarseDepthL0``,
@@ -8,7 +8,7 @@ src/tracking/CoarseTracker.{h,cpp}):
 * per-level residual evaluation with Huber weighting and cutoff saturation
   (``calcRes``, :349-498),
 * the 8x8 (pose+affine) Gauss-Newton system (``calcGSSSE``, :287-344 — the
-  SSE ``Accumulator9`` becomes one masked einsum on the MXU),
+  SSE ``Accumulator9`` becomes one masked einsum),
 * the per-level LM loop with lambda extrapolation and early abort
   (``trackNewestCoarse``, :520-701) as a ``lax.while_loop``.
 
@@ -29,6 +29,7 @@ from ..utils.lie import SE3
 from ..utils.cameras import Pinhole
 from ..utils.interp import bilinear_3
 from ..utils.stats import huber_weight
+from ..utils.precision import full_f32
 
 
 class LevelTemplate(NamedTuple):
@@ -282,6 +283,7 @@ class _LevelCarry(NamedTuple):
     done: jax.Array
 
 
+@full_f32
 def track_level(tpl: LevelTemplate, dI, cam: Pinhole, pose0: SE3, aff0,
                 exposures, aff_ref, max_iterations: int, huber_th: float,
                 cutoff_th: float, lambda_init: float = 0.01,
@@ -391,6 +393,7 @@ def track_level(tpl: LevelTemplate, dI, cam: Pinhole, pose0: SE3, aff0,
     return out.pose, out.aff, rms, sat, visible
 
 
+@full_f32
 def track_newest_coarse(templates: Sequence[LevelTemplate],
                         target_pyr: Sequence[jax.Array],
                         cams: Sequence[Pinhole],

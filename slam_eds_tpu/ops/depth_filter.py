@@ -1,6 +1,6 @@
 """Probabilistic inverse-depth filtering (Vogiatzis/SVO Beta-Gaussian).
 
-Vectorized TPU rewrite of ``eds::mapping::DepthPoints`` (reference
+Vectorized rewrite of ``eds::mapping::DepthPoints`` (reference
 src/mapping/DepthPoints.{hpp,cpp}): per-point state [mu, sigma2, a, b],
 two-view linear triangulation for the depth measurement, geometric
 measurement variance from a 1-pixel error angle, and the Vogiatzis Bayesian

@@ -1,6 +1,6 @@
 """Coarse distance map for spatially-distributed point activation.
 
-TPU-native replacement for DSO's ``CoarseDistanceMap`` (reference
+Array-based replacement for DSO's ``CoarseDistanceMap`` (reference
 src/tracking/CoarseTracker.h:123-166 + CoarseTracker.cpp:703+): the reference
 BFS-floods an L1-resolution grid outward from the projections of all active
 points, then point activation keeps only candidates whose distance exceeds an

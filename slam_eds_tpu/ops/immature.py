@@ -1,6 +1,6 @@
 """Immature-point depth tracing and activation.
 
-Batched TPU rewrite of DSO's ``ImmaturePoint`` (reference
+Batched rewrite of DSO's ``ImmaturePoint`` (reference
 src/tracking/ImmaturePoint.{h,cpp}): every candidate point carries an inverse
 -depth interval [idepth_min, idepth_max]; each new frame
 
@@ -30,6 +30,7 @@ import jax.numpy as jnp
 from ..utils.image import PATTERN_DSO8
 from ..utils.interp import bilinear, bilinear_3
 from ..utils.stats import huber_weight
+from ..utils.precision import full_f32
 
 # status codes (ImmaturePointStatus, ImmaturePoint.h:47-53)
 IPS_UNINITIALIZED = 0
@@ -55,6 +56,7 @@ class ImmaturePoints(NamedTuple):
     mask: jax.Array        # [N] slot occupied
 
 
+@full_f32
 def make_immature(host_dI, uv, mask, outlier_th_sum: float = 2500.0,
                   idepth_init_min: float = 0.0,
                   idepth_init_max: float = jnp.inf):
@@ -86,6 +88,7 @@ def make_immature(host_dI, uv, mask, outlier_th_sum: float = 2500.0,
 
 
 @partial(jax.jit, static_argnames=("width", "height"))
+@full_f32
 def trace_on(pts: ImmaturePoints, target_dI, KRKi, Kt, aff,
              width: int, height: int,
              huber_th: float = 9.0, energy_th: float = 1152.0,
@@ -270,6 +273,7 @@ def trace_on(pts: ImmaturePoints, target_dI, KRKi, Kt, aff,
         status=new_status)
 
 
+@full_f32
 def activate_idepth(pts: ImmaturePoints, target_dIs, KRKis, Kts, affs,
                     target_mask, gn_iterations: int = 3,
                     huber_th: float = 9.0):

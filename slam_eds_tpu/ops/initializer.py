@@ -1,6 +1,6 @@
 """Monocular bootstrap: two-view initial structure.
 
-TPU-native replacement for ``KeyFrame::initialStructure`` (reference
+Array-based replacement for ``KeyFrame::initialStructure`` (reference
 src/tracking/KeyFrame.cpp:825-935 — ORB + FLANN + Lowe ratio + essential
 matrix + recoverPose, success if >12 inliers) and the entry point for the
 MiDaS/depth-map seeding path (tracking/Config.hpp:39). Feature matching is
@@ -8,8 +8,8 @@ replaced by KLT tracks of the keyframe's gradient points (the reference
 also ships KLT tracking for this purpose, Tracker.cpp:378-488); the robust
 essential-matrix estimation is a *batched* RANSAC: all hypotheses are
 solved and scored in parallel (8-point via batched SVD, Sampson-distance
-inlier scoring), then the best is re-fit on its inliers — a natural fit for
-the TPU where the reference loops hypothesis-by-hypothesis inside OpenCV.
+inlier scoring), then the best is re-fit on its inliers, where the
+reference loops hypothesis-by-hypothesis inside OpenCV.
 
 Also provides cheirality-checked pose recovery (the four-fold E
 decomposition) and two-view midpoint triangulation for the initial depths.

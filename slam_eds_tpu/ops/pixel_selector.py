@@ -1,4 +1,4 @@
-"""Density-targeted pixel selection — TPU-native redesign of DSO's
+"""Density-targeted pixel selection — array-based redesign of DSO's
 ``PixelSelector`` (reference src/mapping/PixelSelector.{h,cpp}) and of the
 EDS keyframe candidate selector (``KeyFrame::candidatePoints``,
 src/tracking/KeyFrame.cpp:740-823).
@@ -284,7 +284,7 @@ def candidate_points_grid(grad_mag, patch: int, capacity: int,
     cells; MAX mode picks the top-magnitude pixel per cell, MEDIAN mode
     selects all pixels above the per-cell median.
 
-    TPU form: cell-reshape + argmax / median-compare, then top-k packing into
+    Array form: cell-reshape + argmax / median-compare, then top-k packing into
     fixed capacity. Returns (uv [capacity, 2], mask [capacity]).
     """
     H, W = grad_mag.shape

@@ -1,6 +1,6 @@
 """Distributed bundle adjustment over a device mesh.
 
-The TPU-native "distributed axis" of the framework (SURVEY §2.5/§7): the
+The "distributed axis" of the framework (SURVEY §2.5/§7): the
 reference is a single-process library whose only parallel substrate is a
 6-thread pool + SSE (src/utils/IndexThreadReduce.h); here the *point* axis
 of the sliding-window BA is sharded over a ``jax.sharding.Mesh`` with

@@ -31,6 +31,7 @@ from ..utils import lie
 from ..utils.cameras import Pinhole
 from ..utils.interp import bicubic
 from ..utils.stats import huber_weight, cauchy_weight, masked_mad, HUBER_K
+from ..utils.precision import full_f32
 
 AXIS = "points"
 
@@ -71,6 +72,7 @@ class _Carry(NamedTuple):
     done: jax.Array
 
 
+@full_f32
 def optimize_sharded(state: et.TrackerState, event_frame, cam: Pinhole,
                      norm_coord, grad, idp, weights, mask, mesh: Mesh,
                      max_iterations: int = 20, loss_kind: str = "huber",

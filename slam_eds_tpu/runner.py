@@ -85,9 +85,8 @@ def _camera_from_dataset(d: str, first_img):
            "photometric": None}
     calib_path = os.path.join(d, "calib.yaml")
     if os.path.exists(calib_path):
-        import yaml
-        with open(calib_path) as f:
-            data = yaml.safe_load(f) or {}
+        from .io import yaml_subset
+        data = yaml_subset.load(calib_path) or {}
         if "cam0" in data and "cam1" in data:
             dual = cal.read_dual_calibration(data)
             maps = cal.dual_mappings(dual)
@@ -239,6 +238,7 @@ def run_sequence(dataset_dir: str, cfg: Optional[EDSConfig] = None,
     out = {
         "frames": len(img_names),
         "packets": n_packets,
+        "packets_tracked": len(ev_times),
         "wall_s": wall,
         "frames_per_s": len(img_names) / wall,
     }

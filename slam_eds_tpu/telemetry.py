@@ -57,9 +57,9 @@ class Telemetry:
 
 
 class profile_trace:
-    """Context manager around ``jax.profiler.trace`` — captures an XLA/TPU
-    device trace (per-kernel timing, HBM traffic) viewable in TensorBoard
-    or Perfetto. The TPU-native replacement for the reference's std::chrono
+    """Context manager around ``jax.profiler.trace`` — captures an XLA
+    device trace (per-kernel timing) viewable in TensorBoard or Perfetto.
+    The replacement for the reference's std::chrono
     spot timers (SURVEY §5 aux-subsystems note): the profiler attributes
     time to individual fused kernels instead of whole solver calls.
 

@@ -1,7 +1,7 @@
 """Calibration loading: per-camera info, frame+event dual-camera rigs, the
 common-view rectified geometry, and photometric calibration.
 
-TPU-native counterpart of reference src/utils/Calib.{hpp,cpp}:
+Counterpart of reference src/utils/Calib.{hpp,cpp}:
 * ``CameraInfo`` (K, D, R, P, T_cam_imu, flip — Calib.hpp:38-56) -> a plain
   dataclass parsed from the same YAML schema (`readCameraCalib`,
   Calib.cpp:65-103),
@@ -23,8 +23,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import jax.numpy as jnp
-import yaml
-
+from ..io import yaml_subset
 from .cameras import CameraModel, Pinhole, undistortion_maps, forward_maps, \
     gamma_inverse_table
 
@@ -98,8 +97,7 @@ def read_dual_calibration(path_or_dict) -> DualCamera:
 def _load(path_or_dict) -> dict:
     if isinstance(path_or_dict, dict):
         return path_or_dict
-    with open(path_or_dict) as f:
-        return yaml.safe_load(f) or {}
+    return yaml_subset.load(path_or_dict) or {}
 
 
 def common_view_camera(dual: DualCamera,

@@ -1,6 +1,6 @@
 """Camera models, distortion and undistortion-map precompute.
 
-TPU-native replacement for the reference's calibration stack:
+Array-based replacement for the reference's calibration stack:
 * ``src/utils/Calib.{hpp,cpp}`` — CameraInfo/DualCamera/Camera with OpenCV
   undistortion maps (readCameraCalib / setNewCamera / getMapping).
 * ``src/utils/Undistort.{h,cpp}`` — DSO geometric undistorters

@@ -1,6 +1,6 @@
 """Event rasterization: packets of events -> brightness-increment frames.
 
-TPU-native replacement for the reference's event accumulation:
+Replacement for the reference's event accumulation:
 * ``eds::utils::drawValuesPoints`` (src/utils/Utils.cpp:50-123): bilinear
   4-tap scatter-add of per-event polarity (+1/-1), optional Gaussian time
   weights, optional Gaussian blur.
@@ -11,7 +11,7 @@ TPU-native replacement for the reference's event accumulation:
 Design: a packet is a fixed-capacity [N, 4] array (x, y, t, polarity) with a
 validity mask (real packets are padded/truncated to capacity — static shapes
 for jit). The scatter is expressed as ``jax.ops.segment_sum`` over flattened
-pixel ids, which XLA lowers to an efficient sort-free one-pass scatter on TPU;
+pixel ids, which XLA lowers to a one-pass scatter-add (atomic adds on a GPU);
 each event contributes its 4 bilinear taps. This replaces the reference's
 sequential per-event loop with one batched data-parallel op.
 """
@@ -36,28 +36,19 @@ def event_time_weights(n_valid, capacity, dtype=jnp.float32):
 
 
 def scatter_accumulate(xs, ys, values, height: int, width: int,
-                       mask=None, method: str = "bilinear",
-                       use_pallas: bool | None = None):
+                       mask=None, method: str = "bilinear"):
     """Accumulate per-event ``values`` into an [H, W] image.
 
     bilinear: 4-tap scatter with out-of-image taps zero-weighted (matching
     drawValuesPoints' per-tap bounds checks, Utils.cpp:92-106).
     nn: rounds to nearest pixel with clamping (Utils.cpp:74-81).
 
-    On TPU the bilinear path dispatches to the Pallas matmul-scatter kernel
-    (ops/pallas/raster.py) — XLA scatter-adds serialize on TPU, while the
-    one-hot outer-product formulation rides the MXU. ``use_pallas`` forces
-    the choice (None = auto by backend).
+    Floating-point adds that land on one pixel are summed in an order the
+    device chooses, so results can differ run to run in the last bits.
     """
     dtype = values.dtype
     if mask is not None:
         values = jnp.where(mask, values, jnp.zeros_like(values))
-
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas and method == "bilinear":
-        from ..ops.pallas.raster import rasterize_bilinear
-        return rasterize_bilinear(xs, ys, values, height, width).astype(dtype)
 
     if method == "nn":
         ix = jnp.clip(jnp.round(xs).astype(jnp.int32), 0, width - 1)

@@ -12,7 +12,7 @@ Replaces the reference's image plumbing with XLA-friendly batched ops:
 * The DSO 8-pixel residual pattern (src/utils/settings.h:203-217).
 
 Convolutions are expressed as depthwise ``lax.conv_general_dilated`` over
-NHWC so XLA maps them onto the MXU/VPU; reflect-101 padding matches OpenCV's
+NHWC; reflect-101 padding matches OpenCV's
 default border mode.
 """
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Lie-group math for SO(3)/SE(3) — the TPU-native replacement for the vendored
+"""Lie-group math for SO(3)/SE(3) — the JAX replacement for the vendored
 Sophus headers in the reference (``src/sophus/se3.hpp``, ``src/sophus/so3.hpp``).
 
 Conventions (matching Sophus, which the reference uses via

@@ -7,7 +7,7 @@ The reference computes robust-loss scales from residual statistics:
 * MAD-based Huber/Cauchy scale: 1.4826 * median(|r - median(r)|), tau =
   1.345 * MAD (``Tracker::getLossParams`` src/tracking/Tracker.cpp:281-317).
 
-On TPU the point set has fixed capacity with a validity mask, so every
+Here the point set has fixed capacity with a validity mask, so every
 statistic here is masked: invalid lanes are excluded exactly (median/quantile
 by sorting invalid lanes to +inf and indexing by the valid count, moments by
 weighted sums). All ops are jit-safe with static shapes.

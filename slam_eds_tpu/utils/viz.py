@@ -1,6 +1,6 @@
 """Visualization: colormap LUTs and debug-image generators.
 
-TPU-native counterpart of the reference's viz layer (reference
+Counterpart of the reference's viz layer (reference
 src/utils/Colormap.{hpp,cpp} — LUT colormaps incl. BlueWhiteRed for event
 images — and the KeyFrame debug-image generators, reference
 src/tracking/KeyFrame.cpp:1425-1539: idepthmapViz / weightsViz /

@@ -1,4 +1,4 @@
-"""Long-sequence burn-in (VERDICT r3 item 10, CI-bounded): many
+"""Long-sequence burn-in (CI-bounded): many
 marginalization generations with event noise and a tracking-loss episode.
 
 Asserts, over a 48-frame synthetic run with hot-pixel + random-polarity

@@ -1,5 +1,5 @@
 """Checkpoint/resume of the full pipeline (SURVEY §5: the reference has no
-checkpointing; multi-host TPU deployment requires restartability). A resumed
+checkpointing; long-running deployments require restartability). A resumed
 pipeline must continue deterministically: feeding the same tail of a
 sequence to (a) the uninterrupted pipeline and (b) a snapshot-restored one
 must produce identical trajectories."""

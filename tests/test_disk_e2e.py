@@ -1,4 +1,4 @@
-"""On-disk end-to-end path (VERDICT r4 #5): SyntheticSequence.write_dataset
+"""On-disk end-to-end path: SyntheticSequence.write_dataset
 materializes the external task's data contract (images/*.png + images.txt +
 events.txt + calib.yaml + groundtruth.txt) and runner.run_sequence drives
 the FULL L7 stack over it — frame loader, streaming event reader/ring,
@@ -75,7 +75,6 @@ def test_runner_full_stack_off_disk(disk_seq):
     extent = np.linalg.norm(gt[:, 1:4] - gt[:, 1:4].mean(0), axis=1).max()
     # divergence guard only: 128x96 with 8k-event packets tracks
     # coarsely, and this test's purpose is the on-disk code path (loader,
-    # event ring, recorder, counters). The quantitative ATE evidence
-    # lives at 640x480 in E2E_DISK_r05.json (ATE ~0.03-0.05 on a ~0.3
-    # extent)
+    # event ring, recorder, counters). The 640x480 end-to-end run with
+    # its ATE bound is chip_smoke.py's last phase
     assert res["ate_rmse"] < 0.8 * float(extent + 1e-6)

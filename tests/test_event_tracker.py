@@ -353,7 +353,7 @@ def test_refine_tracks_epiline_consistency_gate(rng):
 
 
 def test_refinement_improves_depth_filter_convergence(rng):
-    """VERDICT r3 item 5 'done' criterion: with imperfect idepth seeds,
+    """With imperfect idepth seeds,
     warp-only tracks are self-consistent with the WRONG seed (the filter
     just reinforces it), while KLT-refined tracks pull the correspondence
     toward the true epipolar position and the triangulated depth toward

@@ -1,4 +1,4 @@
-"""Golden numerical parity vs reference semantics (VERDICT r4 #2).
+"""Golden numerical parity vs reference semantics.
 
 ``native/dso_golden.cpp`` is an independent double-precision implementation
 of the reference's exact BA math — Residuals.cpp:69-265 linearization,
@@ -34,21 +34,28 @@ from slam_eds_tpu.utils.lie import SE3
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "native", "dso_golden.cpp")
-EXE = "/tmp/dso_golden_test"
 
 F, P, K, H, W = 4, 48, 8, 120, 160
 CPARS = 4
 LAM = 1e-5
 
 
+def build_golden(out_dir: str) -> str:
+    """Compile the golden harness into out_dir; returns the binary path.
+    Its input/output files are written next to it."""
+    exe = os.path.join(out_dir, "dso_golden")
+    subprocess.run(["g++", "-O2", "-std=c++17", "-o", exe, SRC],
+                   check=True, capture_output=True, timeout=180)
+    return exe
+
+
 @pytest.fixture(scope="module")
-def golden_exe():
+def golden_exe(tmp_path_factory):
+    out_dir = str(tmp_path_factory.mktemp("golden"))
     try:
-        subprocess.run(["g++", "-O2", "-std=c++17", "-o", EXE, SRC],
-                       check=True, capture_output=True, timeout=180)
-    except Exception as exc:          # pragma: no cover - toolchain missing
+        return build_golden(out_dir)
+    except (OSError, subprocess.SubprocessError) as exc:  # pragma: no cover
         pytest.skip(f"g++ unavailable: {exc}")
-    return EXE
 
 
 def _world(energy_th=1e8, seed=7):
@@ -184,17 +191,30 @@ def _read_ba_output(path):
     return out
 
 
-@pytest.fixture(scope="module")
-def golden(golden_exe):
-    state, images, images_np = _world()
-    inp, outp = "/tmp/golden_ba_in.bin", "/tmp/golden_ba_out.bin"
+def run_golden_ba(exe, state, images_np, tag="ba"):
+    """Run the golden BA on one world; returns its parsed output."""
+    work = os.path.dirname(exe)
+    inp = os.path.join(work, f"golden_{tag}_in.bin")
+    outp = os.path.join(work, f"golden_{tag}_out.bin")
     _write_ba_input(inp, state, images_np)
-    subprocess.run([golden_exe, "ba", inp, outp], check=True, timeout=120)
-    g = _read_ba_output(outp)
+    subprocess.run([exe, "ba", inp, outp], check=True, timeout=120)
+    return _read_ba_output(outp)
+
+
+def golden_case(exe):
+    """(state, golden output, lin, asm, sol) of the seeded BA world, with
+    the JAX side on the default device."""
+    state, images, images_np = _world()
+    g = run_golden_ba(exe, state, images_np)
     lin = energy.linearize(state, images, H, W)
     asm = energy.assemble(state, lin)
     sol = energy.solve_delta(state, asm, lam=LAM, use_orth=False)
     return state, g, lin, asm, sol
+
+
+@pytest.fixture(scope="module")
+def golden(golden_exe):
+    return golden_case(golden_exe)
 
 
 def test_golden_residual_states_match(golden):
@@ -274,10 +294,7 @@ def test_golden_solve_matches(golden):
 def test_golden_outlier_gating_matches(golden_exe):
     """Moderate frameEnergyTH so the OUTLIER branch fires in both."""
     state, images, images_np = _world(energy_th=2000.0, seed=11)
-    inp, outp = "/tmp/golden_ba_in2.bin", "/tmp/golden_ba_out2.bin"
-    _write_ba_input(inp, state, images_np)
-    subprocess.run([golden_exe, "ba", inp, outp], check=True, timeout=120)
-    g = _read_ba_output(outp)
+    g = run_golden_ba(golden_exe, state, images_np, tag="ba_outlier")
     lin = energy.linearize(state, images, H, W)
     valid = np.asarray(lin.valid)
     struct_off = ~np.asarray(state.r_active) | (
@@ -310,16 +327,19 @@ def _event_world(seed=5):
     return Pe, He, We, ef, ncx, ncy, gx, gy, idp, wts, px, q, v
 
 
-@pytest.mark.parametrize("norm_event", [False, True])
-def test_golden_event_cost_matches(golden_exe, norm_event):
+def golden_event_case(exe, norm_event):
+    """(JAX residuals on the default device, golden residuals) of the
+    seeded event world."""
     Pe, He, We, ef, ncx, ncy, gx, gy, idp, wts, px, q, v = _event_world()
-    inp, outp = "/tmp/golden_ev_in.bin", "/tmp/golden_ev_out.bin"
+    work = os.path.dirname(exe)
+    inp = os.path.join(work, "golden_ev_in.bin")
+    outp = os.path.join(work, "golden_ev_out.bin")
     with open(inp, "wb") as f:
         f.write(struct.pack("<4i", Pe, He, We, int(norm_event)))
         f.write(struct.pack("<4d", 70.0, 72.0, We / 2 - 0.5, He / 2 - 0.5))
         for a in (px, q, v, ncx, ncy, gx, gy, idp, wts, ef.ravel()):
             f.write(np.asarray(a, "<f8").tobytes())
-    subprocess.run([golden_exe, "event", inp, outp], check=True, timeout=60)
+    subprocess.run([exe, "event", inp, outp], check=True, timeout=60)
     with open(outp, "rb") as f:
         Pn, = struct.unpack("<i", f.read(4))
         r_g = np.frombuffer(f.read(8 * Pn), "<f8")
@@ -338,4 +358,10 @@ def test_golden_event_cost_matches(golden_exe, norm_event):
         jnp.asarray(np.stack([gx, gy], -1), jnp.float32),
         jnp.asarray(idp, jnp.float32), jnp.asarray(wts, jnp.float32),
         jnp.ones(Pe, bool), norm_event=norm_event)
-    np.testing.assert_allclose(np.asarray(r), r_g, rtol=2e-3, atol=2e-4)
+    return np.asarray(r), r_g
+
+
+@pytest.mark.parametrize("norm_event", [False, True])
+def test_golden_event_cost_matches(golden_exe, norm_event):
+    r, r_g = golden_event_case(golden_exe, norm_event)
+    np.testing.assert_allclose(r, r_g, rtol=2e-3, atol=2e-4)

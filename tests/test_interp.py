@@ -105,3 +105,36 @@ def test_pattern_tile_sample_out_of_bounds_masked():
     _, _, _, ok = pattern_tile_sample(imgs, Ku, Kv)
     expect = np.array([False, False, True, True, True, False, False, False])
     np.testing.assert_array_equal(np.asarray(ok[0, 0]), expect)
+
+
+def test_pattern_tile_sample_matches_float64_reference():
+    """pattern_tile_sample on a build_pyramid level against a float64 numpy
+    bilinear of that level's own [I, gx, gy] planes (interior taps)."""
+    from slam_eds_tpu.utils.image import build_pyramid
+    from slam_eds_tpu.utils.interp import pattern_tile_sample
+
+    rng = np.random.default_rng(2)
+    F, H, W, P, K = 2, 48, 64, 64, 8
+    raw = rng.uniform(0, 255, (F, 2 * H, 2 * W)).astype(np.float32)
+    planes = [np.asarray(build_pyramid(jnp.asarray(im), 2)[0][1],
+                         np.float64) for im in raw]        # [H, W, 3]
+    u = rng.uniform(1, W - 2, (P, F, K)).astype(np.float32)
+    v = rng.uniform(1, H - 2, (P, F, K)).astype(np.float32)
+    I, gx, gy, ok = pattern_tile_sample(
+        jnp.asarray(np.stack([p[..., 0] for p in planes]), jnp.float32),
+        jnp.asarray(u), jnp.asarray(v))
+    assert bool(ok.all())
+
+    ud, vd = u.astype(np.float64), v.astype(np.float64)
+    x0, y0 = np.floor(ud).astype(int), np.floor(vd).astype(int)
+    fx, fy = ud - x0, vd - y0
+    f = np.broadcast_to(np.arange(F)[None, :, None], u.shape)
+    stack = np.stack(planes)                                # [F, H, W, 3]
+    want = ((1 - fx) * (1 - fy))[..., None] * stack[f, y0, x0] \
+        + (fx * (1 - fy))[..., None] * stack[f, y0, x0 + 1] \
+        + ((1 - fx) * fy)[..., None] * stack[f, y0 + 1, x0] \
+        + (fx * fy)[..., None] * stack[f, y0 + 1, x0 + 1]
+    for got, c in ((I, 0), (gx, 1), (gy, 2)):
+        # float32 bilinear weights on values up to 255
+        np.testing.assert_allclose(np.asarray(got, np.float64),
+                                   want[..., c], atol=1e-3)

@@ -1,4 +1,4 @@
-"""Photometric-response parity (VERDICT r4 #6).
+"""Photometric-response parity.
 
 The reference folds the camera response into two places:
 * image correction: raw -> Binv[raw] * 1/V (PhotometricUndistorter,
@@ -78,7 +78,7 @@ def test_pipeline_unaffected_by_declared_gamma():
     """Track the same scene twice: linear images, and gamma-encoded
     images corrected through the declared PhotometricCalib. Trajectories
     must agree (the pipeline is gamma-invariant when the calib is
-    declared — VERDICT r4 #6's acceptance)."""
+    declared)."""
     W, H = 128, 96
     cam = Pinhole(jnp.float32(80.0), jnp.float32(80.0),
                   jnp.float32(W / 2 - 0.5), jnp.float32(H / 2 - 0.5), W, H)

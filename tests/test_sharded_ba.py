@@ -64,7 +64,7 @@ def test_sharded_marginalization_consistent(rng):
 
 
 def test_sharded_window_lifecycle_matches_single_device(rng):
-    """VERDICT r3 item 4: compose the full window lifecycle under sharding
+    """Compose the full window lifecycle under sharding
     over several keyframe cycles — insert -> BA -> point-marginalization ->
     frame-marginalization — and require the marginalization prior (HM/bM),
     poses, and surviving idepths to match the single-device path after the
